@@ -3,7 +3,7 @@
 The reference ``viewer_main`` (reference: src/application/viewer_main.cpp:14
 + src/output/visualizer/, Pangolin) replays a saved ``track.bin`` in an
 interactive 3D window with the semi-dense cloud, keyframe frusta, and the
-trajectory.  Headless TPU pods have no display, so this viewer renders the
+trajectory.  Headless GPU servers have no display, so this viewer renders the
 same scene offline: a software z-buffered projection of the landmark cloud
 and camera frusta from an orbiting virtual camera, written as PNG frames
 (and optionally a side/top trajectory plot).

@@ -1,4 +1,4 @@
-"""YAML config with dot-path overrides → application objects.
+"""JSON or YAML config with dot-path overrides → application objects.
 
 Mirrors the reference ``ConfigLoader`` (reference:
 src/dsopp/src/config_loader.cpp:56-168 — YAML parsed into nested maps with
@@ -6,12 +6,15 @@ path canonization, and ``--config.a.b.0.c=v`` dot-path CLI overrides merged
 before construction; :173 builds sensors/synchronizer/tracker from the
 merged tree) and the fabric pattern (docs/extending_dsopp.md).
 
-The same YAML schema as the reference ships (mono.yaml etc.) is accepted;
-unknown keys warn and fall back to defaults, like the reference fabrics.
+The same schema as the reference ships (mono.yaml etc.) is accepted, as
+YAML or as the equivalent JSON; unknown keys warn and fall back to
+defaults, like the reference fabrics.  JSON needs only the standard
+library; YAML needs PyYAML.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 from dataclasses import dataclass
@@ -21,10 +24,39 @@ log = logging.getLogger("dsopp_tpu.config")
 
 
 def load_config(path: str) -> dict:
-    import yaml
-
+    """``.json`` configs are read with the standard library; any other
+    extension is YAML and needs PyYAML."""
     with open(path) as f:
+        if path.endswith(".json"):
+            return json.load(f)
+        try:
+            import yaml
+        except ImportError as e:
+            raise ImportError(
+                f"{path}: YAML configs need PyYAML, which is not installed; "
+                "write the same tree as a .json config instead") from e
         return yaml.safe_load(f)
+
+
+_SCALAR_WORDS = {"true": True, "yes": True, "on": True,
+                 "false": False, "no": False, "off": False,
+                 "null": None, "~": None, "": None}
+
+
+def _parse_scalar(raw: str):
+    """Override value → Python scalar, the way YAML reads a plain scalar:
+    numbers, booleans (true/yes/on, false/no/off), null, JSON lists or
+    quoted strings; anything else stays a string."""
+    try:
+        return json.loads(raw)
+    except ValueError:
+        pass
+    if raw.lower() in _SCALAR_WORDS:
+        return _SCALAR_WORDS[raw.lower()]
+    try:
+        return float(raw)
+    except ValueError:
+        return raw
 
 
 def apply_overrides(config: dict, overrides) -> dict:
@@ -32,11 +64,10 @@ def apply_overrides(config: dict, overrides) -> dict:
 
     Mirrors parseConfigArgs + updateConfig (dsopp_main.cpp:41,
     config_loader.cpp:146-168): integer path components index lists, the
-    final component is replaced with a YAML-parsed scalar.
+    final component is replaced with the parsed scalar
+    (:func:`_parse_scalar`).
     """
     import copy
-
-    import yaml
 
     config = copy.deepcopy(config)
     for item in overrides:
@@ -48,7 +79,7 @@ def apply_overrides(config: dict, overrides) -> dict:
         for key in keys[:-1]:
             node = node[int(key)] if isinstance(node, list) else node.setdefault(key, {})
         leaf = keys[-1]
-        value = yaml.safe_load(raw)
+        value = _parse_scalar(raw)
         if isinstance(node, list):
             node[int(leaf)] = value
         else:
@@ -297,8 +328,57 @@ def build_tracker_config(tracker_params: dict):
     return cfg
 
 
+def opencv_uses(config: dict) -> list:
+    """The parts of ``config`` that read or transform images with OpenCV.
+
+    The ``npy_folder`` provider and the ``precalculated`` initializer need
+    neither OpenCV nor PyYAML, so a JSON config built from them runs the
+    tracker on a machine that has only JAX and NumPy.
+    """
+    uses = []
+    for s in config.get("sensors", []):
+        if s.get("type") != "camera":
+            continue
+        sid = s.get("id", "camera")
+        kind = (s.get("provider") or {}).get("type", "image_folder")
+        if kind in ("image_folder", "video"):
+            uses.append(f"{sid}: provider type {kind!r}")
+        ratio = ((s.get("transformations") or {}).get("resize_transformer")
+                 or {}).get("resize_ratio", 1.0)
+        if float(ratio) != 1.0:
+            uses.append(f"{sid}: resize_transformer")
+        if s.get("camera_mask"):
+            uses.append(f"{sid}: camera_mask")
+        if (s.get("model") or {}).get("vignetting"):
+            uses.append(f"{sid}: vignetting")
+        if (s.get("semantics") or {}).get("folder"):
+            uses.append(f"{sid}: semantics")
+    init = config.get("initializer", {}) or {}
+    poses_file = init.get("poses_file") or (
+        (config.get("tracker", {}) or {}).get("pose_alignment", {})
+        or {}).get("poses_file")
+    if init.get("type") != "precalculated" and not poses_file:
+        uses.append("feature-based bootstrap initializer")
+    return uses
+
+
+def _require_opencv(config: dict):
+    uses = opencv_uses(config)
+    if not uses:
+        return
+    try:
+        import cv2  # noqa: F401
+    except ImportError as e:
+        raise ImportError(
+            "this config needs OpenCV (cv2), which is not installed: "
+            + "; ".join(uses) + ".  Without it, use the npy_folder provider "
+            "and the precalculated initializer") from e
+
+
 def build_application(config: dict, base_dir: str = ".", dtype=None) -> Application:
     import jax.numpy as jnp
+
+    _require_opencv(config)
 
     from dsopp_tpu.sensors.camera import Camera
     from dsopp_tpu.tracker.monocular import MonocularTracker

@@ -1,6 +1,6 @@
 """Batched camera models with analytic projection Jacobians.
 
-TPU-native analog of the reference camera-model layer
+JAX analog of the reference camera-model layer
 (reference: src/energy/camera_model/ — pinhole_camera.hpp:21, simple_radial.hpp,
 camera_model_base.hpp).  Behavior parity:
 
@@ -15,7 +15,7 @@ camera_model_base.hpp).  Behavior parity:
 Design differences from the reference: models are immutable pytrees whose
 intrinsics may carry arbitrary leading batch dimensions; project/unproject are
 vectorized over points and never branch — validity is returned as a mask, to
-be folded into residual masks (the fixed-shape TPU idiom replacing the
+be folded into residual masks (the fixed-shape idiom replacing the
 reference's bool returns).
 """
 

@@ -1,14 +1,15 @@
 """Double-float ("df") arithmetic: near-double precision from float32 pairs.
 
-TPUs have no float64 hardware; requesting ``jnp.float64`` without x64 mode
-silently truncates to float32.  The reference deliberately keeps its
-marginalization ledger in double (``system_marginalized_``,
+The device path runs in float32: the whole program stays in one dtype
+(no x64 mode, which would widen every default), and a GPU's float64 rate
+is a small fraction of its float32 rate.  The reference deliberately keeps
+its marginalization ledger in double (``system_marginalized_``,
 reference: src/energy/problems/include/energy/problems/
 photometric_bundle_adjustment/eigen_photometric_bundle_adjustment_problem.hpp:147-203)
 because the ledger accumulates hundreds of Schur folds over a run and the
 ``b -= H·state`` rebasing cancels catastrophically in single precision.
 
-The TPU-native equivalent is an unevaluated pair ``hi + lo`` with
+The float32 equivalent is an unevaluated pair ``hi + lo`` with
 ``|lo| <= ulp(hi)/2`` (a "double-float"), using the classic error-free
 transformations:
 
@@ -19,7 +20,12 @@ transformations:
 composed into compensated vector/matrix ops.  All ledger matrices here are
 tiny ([K·8, K·8] ≤ 72×72), so the ~10× flop overhead is invisible next to
 the [K,K,N,P] residual kernels; what matters is that the pair arithmetic
-vectorizes on the VPU with no host round-trips and no x64 flag.
+is elementwise f32 work on the device, with no host round-trips and no x64
+flag.
+
+The transformations are exact only if every multiply and the add after it
+round separately: a compiler that fuses them into one FMA breaks Dekker's
+split.  ``chip_smoke.py`` checks ``two_prod`` for exactness on the GPU.
 
 All functions operate on (hi, lo) array pairs of equal shape.  The same code
 runs in float64 pairs under the CPU x64 oracle, where it is effectively

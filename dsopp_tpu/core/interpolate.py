@@ -1,6 +1,6 @@
 """Bilinear grid sampling of (intensity, dx, dy) pixel maps.
 
-TPU-native analog of the reference ``PixelMap``/``PixelInfo`` layer
+JAX analog of the reference ``PixelMap``/``PixelInfo`` layer
 (reference: src/features/include/features/camera/pixel_map.hpp:17-142 and
 calculate_pixelinfo.cpp).  Behavior parity:
 
@@ -11,19 +11,21 @@ calculate_pixelinfo.cpp).  Behavior parity:
 * interpolation uses the corner weights (1-dx)(1-dy), … with (x, y) pixel
   coordinates, ix = floor(x).
 
-TPU-first design: a pixel map is a dense ``[3, H, W]`` array (channels:
+Design: a pixel map is a dense ``[3, H, W]`` array (channels:
 intensity, d/dx, d/dy); sampling is a batched flat gather over ``H*W``.
 Callers guarantee coordinates are inside the camera ROI border (≥ 4 px), so
 index clamping never changes in-ROI results; a validity mask is still
 returned for belt-and-braces masking.
 
-The scattered gather is the TPU-unfriendliest op of the pipeline (SURVEY §7
-"hard parts"); this file is the XLA reference implementation, and
-``dsopp_tpu.ops`` holds the Pallas kernel that replaces it on the hot path.
+The scattered gather is the hardest op of the pipeline for an accelerator
+(SURVEY §7 "hard parts"); this file is the plain reference implementation,
+and ``dsopp_tpu.ops`` holds the packed layouts (plain JAX too) that the hot
+path uses instead.
 """
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 
@@ -101,7 +103,8 @@ def sample(pixel_map, uv):
     flat = pixel_map.reshape(c, h * w)
     gathered = jnp.take(flat, flat_idx, axis=1)  # [C, ..., 4]
     weights = weights.astype(pixel_map.dtype)
-    out = jnp.einsum("c...k,...k->...c", gathered, weights)
+    out = jnp.einsum("c...k,...k->...c", gathered, weights,
+                     precision=jax.lax.Precision.HIGHEST)
     return out, inside
 
 

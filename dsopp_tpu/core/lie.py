@@ -1,6 +1,6 @@
 """Batched SO3/SE3 Lie-group operations on quaternions.
 
-TPU-native analog of the reference motion layer
+JAX analog of the reference motion layer
 (reference: src/energy/motion/include/energy/motion/se3_motion.hpp:16 — an SE3
 wrapper over Sophus with right/left increments and Adjoint-based "log
 transformers").  Design differences:
@@ -20,6 +20,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 
 _SMALL = 1e-6
@@ -281,7 +282,9 @@ class SE3(NamedTuple):
         """
         r = quat_to_matrix(self.q)
         th = so3_hat(self.t)
-        top = jnp.concatenate([r, th @ r], axis=-1)
+        top = jnp.concatenate(
+            [r, jnp.matmul(th, r, precision=jax.lax.Precision.HIGHEST)],
+            axis=-1)
         bot = jnp.concatenate([jnp.zeros_like(r), r], axis=-1)
         return jnp.concatenate([top, bot], axis=-2)
 

@@ -1,6 +1,6 @@
 """Reprojection of (pixel, inverse depth) between frames, with Jacobians.
 
-TPU-native analog of the reference ``ArrayReprojector``
+JAX analog of the reference ``ArrayReprojector``
 (reference: src/energy/projector/include/energy/projector/camera_reproject.hpp:101
 generic path, :195 pinhole+SE3 fast path, reprojectPattern :56-76).
 
@@ -77,10 +77,10 @@ def reproject(model_ref, model_tgt, uv, idepth, t_t_r: SE3) -> Reprojection:
 def reproject_jacobian(model_ref, model_tgt, uv, idepth, t_t_r: SE3) -> ReprojectionJac:
     """Reprojection plus analytic Jacobians (the J1 hot-path math).
 
-    TPU note: the chain is written as broadcast multiply/accumulate and
-    cross products — XLA lowers per-point matmuls with tiny (2×3·3×6)
-    contraction dims to padded MXU batches, measured ~2–4× slower than the
-    expanded elementwise form at the [K,K,N,P] hot-path batch size.
+    The chain is written as broadcast multiply/accumulate and cross
+    products instead of per-point matmuls with tiny (2×3·3×6) contraction
+    dims: elementwise f32 arithmetic that XLA fuses, exact whatever the
+    device's default matmul precision.
     Identities used:  row·ĥ(v) = row × v  (so J·ĥ(v) is a row-wise cross
     product) and  J·[d·R | −R·ĥ(r)] = [d·(J·R) | −(J·R) row-cross r].
     """

@@ -1,6 +1,6 @@
 """Distinct-feature extraction + matching for the FBS bootstrap.
 
-TPU-native analog of the reference distinct-features stack
+JAX analog of the reference distinct-features stack
 (reference: src/feature_based_slam/features/src/
 distinct_features_extractor_orb.cpp — ORB keypoints + descriptors;
 correspondences_finder.hpp — the matching API the initializer consumes).

@@ -6,7 +6,7 @@ estimate_se3_pnp, estimate_so3_inlier_count standstill detection,
 triangulate_points, ransac/ransac.hpp generic driver; the reference uses
 OpenGV solvers).  Implemented from scratch with vectorized hypothesis
 scoring — minimal-set sampling on host, batched residual evaluation over
-all hypotheses × points (the TPU-friendly RANSAC shape).
+all hypotheses × points (the batched RANSAC shape).
 
 All functions take **normalized image coordinates** (z = 1 rays).
 """
@@ -307,9 +307,6 @@ def so3xs2_refine(pc_ref, pc_tgt, r0, t0, focal, threshold,
 
     jac = jax.jacfwd(lambda p, r_c, t_c, f_c: residuals(p, r_c, t_c, f_c)[0])
 
-    state = (r_cur, t_cur, f_cur, energy_of(r_cur, t_cur, f_cur),
-             jnp.asarray(1e-4, dtype))
-
     def body(_, state):
         r_c, t_c, f_c, e, lam = state
         p0 = jnp.zeros(n_par, dtype)
@@ -328,7 +325,12 @@ def so3xs2_refine(pc_ref, pc_tgt, r0, t0, focal, threshold,
                 jnp.where(acc, f_n, f_c), jnp.where(acc, e_n, e),
                 jnp.where(acc, lam * 0.5, lam * 4.0))
 
-    r_c, t_c, f_c, e, _ = jax.lax.fori_loop(0, iterations, body, state)
+    # the products are tiny; full f32 keeps the GPU's default TF32 inputs
+    # from rounding E and the normal equations
+    with jax.default_matmul_precision("highest"):
+        state = (r_cur, t_cur, f_cur, energy_of(r_cur, t_cur, f_cur),
+                 jnp.asarray(1e-4, dtype))
+        r_c, t_c, f_c, e, _ = jax.lax.fori_loop(0, iterations, body, state)
     rms = jnp.sqrt(e / max(len(np.asarray(pc_ref)), 1))
     return (np.asarray(r_c), np.asarray(t_c), float(f_c), float(rms))
 

@@ -1,6 +1,6 @@
 """Frame embedders: [H, W] intensity → [C, H, W] feature channels.
 
-TPU-native analog of the reference frame-embedding extractor interface
+JAX analog of the reference frame-embedding extractor interface
 (reference: src/features/include/features/camera/frame_embedding_extractor.hpp
 — GN-Net-style learned embeddings, hidden behind an extractor; the shipped
 pipeline uses the identity).  The embedded frame feeds
@@ -58,7 +58,8 @@ class FilterBankEmbedder:
         k = self.filters[:, None].astype(jnp.float32)  # [C, 1, 3, 3]
         out = jax.lax.conv_general_dilated(
             x, k, (1, 1), "SAME",
-            dimension_numbers=("NCHW", "OIHW", "NCHW"))
+            dimension_numbers=("NCHW", "OIHW", "NCHW"),
+            precision=jax.lax.Precision.HIGHEST)
         return out[0].astype(dtype)                    # [C, H, W]
 
 

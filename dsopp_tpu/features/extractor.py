@@ -1,11 +1,11 @@
 """Candidate-point selection (the J8 job).
 
-TPU-native analog of the reference extractors
+JAX analog of the reference extractors
 (reference: src/features/src/eigen_tracking_features_extractor.cpp:99-340 —
 DSO's region-histogram threshold + block-max selection; and
 sobel_tracking_features_extractor.cpp:26-77 — Sobel quantile variant).
 
-TPU-first redesign: instead of data-dependent scans with adaptive re-runs,
+Fixed-shape redesign: instead of data-dependent scans with adaptive re-runs,
 selection is one fixed-shape reduction pass —
 
 1. gradient energy g² = dx² + dy² from the level-0 pixel map;
@@ -49,9 +49,8 @@ def _region_threshold(g2, factor):
     The reference computes exactly this integer-binned histogram median of
     the gradient MAGNITUDE per region (eigen_tracking_features_extractor.cpp
     fillGradientThresholdMap: 50 unit bins, ``computeMedian`` over counts);
-    a sort-based exact median costs ~2.5 ms on the v5e, the binned counts
-    ~0.2 ms, and median commutes with the g→g² monotone map up to the 1-unit
-    bin quantization.
+    binned counts avoid a sort, and median commutes with the g→g² monotone
+    map up to the 1-unit bin quantization.
     """
     h, w = g2.shape
     rh, rw = h // REGION, w // REGION

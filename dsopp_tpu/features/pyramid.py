@@ -1,6 +1,6 @@
 """Image pyramids with per-level (intensity, dx, dy) pixel maps.
 
-TPU-native analog of the reference ``PixelDataFrame`` pyramid
+JAX analog of the reference ``PixelDataFrame`` pyramid
 (reference: src/features/include/features/camera/pixel_data_frame.hpp:80 file,
 downscale_image.hpp — 2×2 average downscale).  The photometric correction
 (inverse response / vignetting) lives in ``dsopp_tpu.sensors.photometric`` and
@@ -26,9 +26,7 @@ def downscale(image):
     """2×2 average downscale, [..., H, W] → [..., H//2, W//2].
 
     Matches reference downscaleImage (downscale_image.hpp:16-33).
-    Implemented as one ``reduce_window`` — the stride-2 lane slicing of the
-    naive form costs ~3.7 ms at VGA on the v5e (lane-shuffle bound) vs
-    ~0.13 ms for the window reduction.
+    Implemented as one ``reduce_window`` over 2×2 windows.
     """
     h = (image.shape[-2] // 2) * 2
     w = (image.shape[-1] // 2) * 2

@@ -3,7 +3,7 @@
 The reference's performance-critical CPU kernels (AVX2 gradient maps,
 pyramid downscale, photometric LUT — calculate_pixelinfo.cpp,
 downscale_image.hpp) have native equivalents here for the HOST data path:
-while the TPU computes on frame t, the CPU prepares frame t+1.  The shared
+while the device computes on frame t, the CPU prepares frame t+1.  The shared
 library is rebuilt from source on import if missing (g++ -O3 -march=native);
 all entry points have pure-NumPy fallbacks so the package works without a
 toolchain.

@@ -1,12 +1,12 @@
 // Native host-side image preprocessing kernels.
 //
-// TPU-native framework analog of the reference's hand-vectorized CPU kernels
+// Native analog of the reference's hand-vectorized CPU kernels
 // (reference: src/features/src/calculate_pixelinfo.cpp — AVX2 gradient
 // computation; downscale_image.hpp — 2x2 average pyramid;
 // photometrically_corrected_image.cpp — inverse-response LUT).
 //
 // These run on the host data path: decoding/correcting/pyramid-building the
-// incoming frame while the TPU computes on the previous one.  Built with
+// incoming frame while the device computes on the previous one.  Built with
 // -O3 -march=native; exposed to Python via ctypes (no pybind11 dependency).
 
 #include <cstdint>

@@ -1,8 +1,7 @@
 """Neighborhood-packed bilinear sampling — one gather per pattern GROUP.
 
-The honest microbench (PERF.md) shows the scattered row gather costs
-~24 ns/row regardless of layout, and the epipolar SSD sweep issues one row
-per (landmark, sample, pattern-point) — 230k+ rows per tick.  The 8 pattern
+An epipolar SSD sweep that gathers one row per (landmark, sample,
+pattern-point) issues 230k+ rows per tick.  The 8 pattern
 points of one (landmark, sample) cluster within a few pixels, so packing
 each pixel's 8×8 neighborhood into one row lets the whole pattern be
 fetched with a SINGLE central gather: 8× fewer rows, then the bilinear
@@ -31,29 +30,20 @@ WIN = 8
 
 
 def pack_neighborhood(channel_map):
-    """[H, W] map → [H*W, WIN*WIN] neighborhood rows.
+    """[H, W] map → [H*W, 128] neighborhood rows.
 
     Row p holds the WIN×WIN block whose top-left pixel has flat index p
-    (dy-major).  Rows within WIN-1 of the right/bottom edge hold zero
-    padding there; they are never addressed (bases are clamped).
-
-    Implemented as ONE patch-extraction convolution: the earlier
-    roll-and-stack construction materialized WIN² shifted copies, which
-    under ``vmap`` XLA laid out as [B, H*W, 1] buffers — 128× lane padding,
-    ~600 MB per copy at VGA (measured OOM on a 16 GB chip at B=4).  The
-    conv lowers to a single fused patch gather with no padded temporaries.
-
-    r4: rows are zero-padded 64 → 128 lanes — a gathered row that is
-    EXACTLY one (8, 128) f32 tile fetches at tile-copy speed (~4× the
-    partial-tile rate, PERF.md §1.2), and the epipolar sweep fetches 256k
-    rows per tick.
+    (dy-major) in lanes 0..WIN²-1, zeros beyond.  Rows within WIN-1 of the
+    right/bottom edge hold zero padding there; they are never addressed
+    (bases are clamped).  Built from WIN² shifted slices of the padded map
+    stacked on the lane axis: a copy, exact by construction.
     """
     h, w = channel_map.shape
-    patches = jax.lax.conv_general_dilated_patches(
-        channel_map[None, None], (WIN, WIN), (1, 1),
-        [(0, WIN - 1), (0, WIN - 1)])                   # [1, WIN*WIN, H, W]
-    t = patches.reshape(WIN * WIN, h * w).T             # [HW, 64]
-    return jnp.pad(t, ((0, 0), (0, 128 - WIN * WIN)))
+    padded = jnp.pad(channel_map, ((0, WIN - 1), (0, WIN - 1)))
+    lanes = [padded[dy:dy + h, dx:dx + w]
+             for dy in range(WIN) for dx in range(WIN)]
+    lanes += [jnp.zeros_like(channel_map)] * (128 - len(lanes))
+    return jnp.stack(lanes, axis=-1).reshape(h * w, 128)
 
 
 def sample_nbhd(nb, uv, center, height, width):

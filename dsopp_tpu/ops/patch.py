@@ -1,20 +1,14 @@
-"""Patch-table sampling — ONE 128-lane gather per pattern group.
+"""Patch-table sampling — ONE 128-lane row gather per pattern group.
 
 The BA/refine residual pass needs (intensity, dx, dy) bilinearly sampled at
 every reprojected pattern point: K·K·N·P ≈ 200k scattered samples per
-evaluation.  Measured gather cost on the v5e is dominated by ROW COUNT, and
-a row whose lane width is EXACTLY one physical tile (128 f32 lanes) fetches
-at full tile-copy speed:
-
-    take 200k rows × 12 f32 (corner-packed, r2 layout):  ~1.5–4 ms
-    take  25k rows × 128 f32 (this layout):              ~0.17 ms
-
-So instead of one row per sample, this module packs, per image pixel, the
-10×10 intensity window centered on it into one 128-lane row ([H·W, 128],
-lanes 100..127 zero).  The 8 pattern points of one (anchor, target,
-landmark) group cluster within a few pixels, so ONE row fetch per group
-yields every corner AND the ±1 gradient halo; bilinear values and the
-precomputed-central-difference gradients are then reconstructed in-register:
+evaluation.  Instead of one gathered row per sample, this module packs, per
+image pixel, the 10×10 intensity window centered on it into one 128-lane
+row ([H·W, 128], lanes 100..127 zero).  The 8 pattern points of one
+(anchor, target, landmark) group cluster within a few pixels, so ONE row
+fetch per group yields every corner AND the ±1 gradient halo; bilinear
+values and the precomputed-central-difference gradients are then
+reconstructed in registers:
 
     value(p)  = Σ_corners w_c · I[c]
     dx(p)     = Σ_corners w_c · ½(I[c+(1,0)] − I[c−(1,0)])
@@ -26,18 +20,20 @@ Points whose corners+halo escape the 10×10 window (extreme warp) are
 reported invalid; callers already require ≥4 px ROI border for validity
 (camera BORDER_SIZE), which this window covers at warp stretch ≤ ~1.5×.
 
+The layout trades 128× the image's bytes per table for 8× fewer gathered
+rows; whether that trade pays on a given device is measured, not assumed
+(PERF.md).
+
 Reference analog: PixelMap::Evaluate over a PatternPatch
 (src/features/include/features/camera/pixel_map.hpp:227-300) — the
 reference's contiguous Eigen layout exploits the same pattern locality
-through the CPU cache; here it is explicit in the row layout and sized to
-the TPU's (8, 128) tile.
+through the CPU cache; here it is explicit in the row layout.
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 PATCH_WIN = 10      # window side: pattern ±2, bilinear +1, gradient halo ±1
 PATCH_LO = 4        # window top-left = floor(center) − PATCH_LO
@@ -50,30 +46,17 @@ def pack_patch_table(image):
     Row p (pixel y, x) holds pixels (y−4..y+5, x−4..x+5) dy-major in lanes
     0..99 (zeros outside the image), lanes 100..127 zero.
 
-    Built as TWO separable NHWC one-hot convolutions (vertical 1→10
-    channels, then horizontal 10→100): the window index lands directly on
-    the LANE (channel) axis, so the table materializes in its final
-    [H·W, lanes] layout with no transpose.  Measured per VGA table on the
-    v5e: conv_general_dilated_patches + 123 MB lane/sublane transpose
-    5.6 ms → one-shot NHWC conv 4.4 ms → separable form 2.0 ms.
+    Built from 100 shifted slices of the zero-padded image stacked on the
+    lane axis: a copy, exact by construction, which XLA emits as one
+    fusion.
     """
     h, w = image.shape
     hi = PATCH_WIN - 1 - PATCH_LO
-    n = PATCH_WIN * PATCH_WIN
-    kv = jnp.zeros((PATCH_WIN, 1, 1, PATCH_WIN), image.dtype)
-    kv = kv.at[jnp.arange(PATCH_WIN), 0, 0, jnp.arange(PATCH_WIN)].set(1.0)
-    ov = jax.lax.conv_general_dilated(
-        image[None, :, :, None], kv, (1, 1), [(PATCH_LO, hi), (0, 0)],
-        dimension_numbers=("NHWC", "HWIO", "NHWC"))     # [1, H, W, 10ky]
-    kh = np.zeros((1, PATCH_WIN, PATCH_WIN, n), np.float32)
-    for ky in range(PATCH_WIN):
-        for kx in range(PATCH_WIN):
-            kh[0, kx, ky, ky * PATCH_WIN + kx] = 1.0
-    out = jax.lax.conv_general_dilated(
-        ov, jnp.asarray(kh, image.dtype), (1, 1), [(0, 0), (PATCH_LO, hi)],
-        dimension_numbers=("NHWC", "HWIO", "NHWC"))     # [1, H, W, 100]
-    t = out[0].reshape(h * w, n)
-    return jnp.pad(t, ((0, 0), (0, PATCH_LANES - n)))
+    padded = jnp.pad(image, ((PATCH_LO, hi), (PATCH_LO, hi)))
+    lanes = [padded[ky:ky + h, kx:kx + w]
+             for ky in range(PATCH_WIN) for kx in range(PATCH_WIN)]
+    lanes += [jnp.zeros_like(image)] * (PATCH_LANES - len(lanes))
+    return jnp.stack(lanes, axis=-1).reshape(h * w, PATCH_LANES)
 
 
 def pack_patch_table_c(channels):
@@ -149,7 +132,7 @@ def sample_pattern_rows(rows, uv, bx, by, height, width):
 
     # contract y then x (and x then y for dy) — mul+sum over the 10-axis;
     # XLA fuses the broadcast products into the reduction (no [P,10,10]
-    # materialization), and the 10-dim never touches the MXU
+    # materialization), and the 10-wide contraction stays exact f32
     win_b = win[..., None, :, :]                          # [..., 1, 10y, 10x]
     tmp_y = jnp.sum(win_b * wy[..., :, :, None], axis=-2)   # [..., P, 10x]
     tmp_x = jnp.sum(win_b * wx[..., :, None, :], axis=-1)   # [..., P, 10y]

@@ -1,16 +1,11 @@
-"""Corner-packed bilinear sampling — the fast TPU layout for scattered gathers.
+"""Corner-packed bilinear sampling — one gathered row per sample point.
 
 Numerically identical to :func:`dsopp_tpu.core.interpolate.sample` (same
 corner weights, same summation order); only the memory layout of the gather
 changes.  The naive path gathers 4 corners x C channels as independent
-scalar elements (``take`` over a ``[C, H*W]`` map); TPU gathers fetch whole
-tile rows per index, so packing the 4C values a sample needs into ONE row of
-a ``[H*W, 4C]`` array turns 4C scalar gathers into a single row gather.
-Measured on a v5e chip (scripts/gather_probe2.py, 1.84M points, 480x640):
-
-    naive take([3,HW], idx4):  59.4 ms
-    packed take([HW,12], idx): 13.2 ms   (4.5x)
-    packed take([HW,4],  idx): 10.8 ms   (intensity-only, 5.5x)
+scalar elements (``take`` over a ``[C, H*W]`` map); packing the 4C values a
+sample needs into ONE row of a ``[H*W, 4C]`` array turns 4C scalar gathers
+into a single contiguous row gather.
 
 Reference analog: PixelMap::Evaluate / interpolateLinear
 (src/features/include/features/camera/pixel_map.hpp:227-300) — the
@@ -20,6 +15,7 @@ the same locality reason.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 
@@ -74,16 +70,16 @@ def sample_packed(packed, uv, height, width, channels=None):
 
     Bit-for-bit the same result as ``interpolate.sample`` on the unpacked
     map: the per-corner weighted sum runs in the same corner order.
-    ``channels``: real channel count when the rows carry zero tile padding
-    beyond ``4*channels`` lanes (a row that is exactly one (8, 128) tile
-    fetches ~4× faster than a 12-lane partial row).
+    ``channels``: real channel count when the rows carry zero padding
+    beyond ``4*channels`` lanes.
     """
     base, weights, inside = _corner_base(uv, height, width)
     rows = jnp.take(packed, base, axis=0)               # [..., 4C(+pad)]
     c = packed.shape[-1] // 4 if channels is None else channels
     rows = rows[..., : 4 * c].reshape(rows.shape[:-1] + (4, c))
     weights = weights.astype(packed.dtype)
-    out = jnp.einsum("...kc,...k->...c", rows, weights)
+    out = jnp.einsum("...kc,...k->...c", rows, weights,
+                     precision=jax.lax.Precision.HIGHEST)
     return out, inside
 
 

@@ -1,6 +1,6 @@
 """Visualizer-style debug imagery.
 
-TPU-native analog of the reference visualizer's per-frame debug views
+JAX analog of the reference visualizer's per-frame debug views
 (reference: src/tracker/tracker/src/monocular_tracker.cpp:323-374 —
 ``debugCurrentFrame`` mask overlay and ``debugCurrentKeyframe`` idepth
 JET colormap; rendered live by the Pangolin visualizer, here produced as

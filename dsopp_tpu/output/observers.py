@@ -1,6 +1,6 @@
 """Observer-style output interfaces.
 
-TPU-native analog of the reference output-interface set (reference:
+JAX analog of the reference output-interface set (reference:
 src/output/include/output_interfaces/ — TrackOutputInterface observers
 registered on the track, notified per event, finished at shutdown;
 dsopp.cpp wires them to the visualizer/storage/metrics).  Here observers

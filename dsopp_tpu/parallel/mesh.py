@@ -1,13 +1,13 @@
 """Device-mesh construction for distributed bundle adjustment.
 
 The reference is a single-process CPU pipeline (SURVEY §2.8: oneTBB only).
-The TPU-native scaling axes replacing its thread pool are:
+The scaling axes replacing its thread pool are:
 
 * ``seq``  — data parallelism over independent camera sequences (batched
   multi-sequence tracking; each sequence's window is independent);
 * ``lm``   — model parallelism over landmark slots: residual/Jacobian
   evaluation and Hessian/Schur accumulation shard over landmarks, reduced
-  with ``psum`` over ICI (the analog of the reference's mutex-merged TBB
+  with ``psum`` over the device interconnect (the analog of the reference's mutex-merged TBB
   accumulators, hessian_block_evaluation.hpp:102-246).
 
 The (K·8)² pose system is tiny and solved replicated on every device.
@@ -41,7 +41,8 @@ def initialize_distributed(coordinator: str | None = None,
     """Multi-host runtime bring-up (jax.distributed).
 
     Call once per host before any device use.  With no arguments the
-    environment-based auto-detection is used (TPU pods set the variables);
+    environment-based auto-detection is used (cluster launchers set the
+    variables);
     a no-op when already initialized or single-process.
     """
     if jax.process_count() > 1:
@@ -57,9 +58,9 @@ def initialize_distributed(coordinator: str | None = None,
 
 def make_hybrid_mesh(num_seq: int = 0, num_lm: int = 0) -> Mesh:
     """(seq, lm) mesh laid out so that the ``lm`` axis (which carries the
-    per-iteration psum of partial Hessians) rides ICI within each host's
-    slice, and the ``seq`` axis (independent sequences — no per-iteration
-    traffic) spans hosts over DCN.
+    per-iteration psum of partial Hessians) stays within each host's
+    devices (NVLink between GPUs), and the ``seq`` axis (independent
+    sequences — no per-iteration traffic) spans hosts over the network.
 
     Single-process fallback: a plain :func:`make_mesh`.
     """
@@ -80,7 +81,7 @@ def make_hybrid_mesh(num_seq: int = 0, num_lm: int = 0) -> Mesh:
         grid = mesh_utils.create_hybrid_device_mesh(
             mesh_shape=mesh_shape, dcn_mesh_shape=dcn_shape)
     except ValueError:
-        # no slice topology (e.g. multi-process CPU / single-slice TPU):
+        # no slice topology (e.g. multi-process CPU or GPU):
         # group by process instead — each process is one DCN granule
         grid = mesh_utils.create_hybrid_device_mesh(
             mesh_shape=mesh_shape, dcn_mesh_shape=dcn_shape,

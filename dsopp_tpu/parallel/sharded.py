@@ -1,6 +1,6 @@
 """Sharded multi-sequence bundle-adjustment step.
 
-Scaling design (SURVEY §2.8 → TPU): the distributed part of DSO-style BA is
+Scaling design (SURVEY §2.8): the distributed part of DSO-style BA is
 residual/Jacobian evaluation and Hessian/Schur **accumulation** — sums over
 landmarks.  We therefore:
 

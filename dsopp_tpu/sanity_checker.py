@@ -1,6 +1,6 @@
 """Track sanity checking (vehicle-kinematics plausibility gates).
 
-TPU-native analog of the reference sanity-checker subsystem
+JAX analog of the reference sanity-checker subsystem
 (reference: src/sanity_checker/ — ``SanityChecker::check(track)`` interface
 at include/sanity_checker/sanity_checker.hpp:14-25, the
 ``SanityCheckStatus`` enum at sanity_check_status.hpp:6-13, the YAML fabric

@@ -2,8 +2,8 @@
 
 The reference keeps a single ``Precision`` scalar switchable between float and
 double (reference: src/common/include/common/settings.hpp:9-17, USE_FLOAT cmake
-option).  On TPU the productive dtype is float32 (MXU/VPU native); float64 is
-emulated and slow.  We therefore:
+option).  On an accelerator the productive dtype is float32; float64 runs
+at a small fraction of its rate.  We therefore:
 
 * default every array to ``float32``;
 * keep library code dtype-polymorphic (dtype follows the inputs), so CPU tests

@@ -1,6 +1,6 @@
 """Dense normal-equation helpers.
 
-TPU-native analog of the reference ``NormalLinearSystem``
+JAX analog of the reference ``NormalLinearSystem``
 (reference: src/energy/problems/include/energy/normal_linear_system.hpp:15 —
 H/b container with addToBlock, ``reduce_system`` Schur elimination — the
 marginalization primitive — and ``solve``).  Here systems are plain (H, b)
@@ -10,7 +10,11 @@ one device.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
+
+# full-precision products; TF32 would round the reduced system
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def solve_normal(h, b, damping=0.0):
@@ -45,8 +49,9 @@ def reduce_system(h, b, keep, eliminate):
     b_e = b[eliminate]
     # pseudo-inverse for robustness: eliminated blocks can be rank-deficient
     h_ee_inv = jnp.linalg.pinv(h_ee, hermitian=True)
-    h_red = h_kk - h_ke @ h_ee_inv @ h_ke.T
-    b_red = b_k - h_ke @ h_ee_inv @ b_e
+    corr = jnp.matmul(h_ke, h_ee_inv, precision=HIGHEST)
+    h_red = h_kk - jnp.matmul(corr, h_ke.T, precision=HIGHEST)
+    b_red = b_k - jnp.matmul(corr, b_e, precision=HIGHEST)
     # re-symmetrize against fp drift
     h_red = 0.5 * (h_red + h_red.T)
     return h_red, b_red

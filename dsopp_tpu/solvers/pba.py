@@ -1,6 +1,6 @@
 """Sliding-window photometric bundle adjustment (jobs J1–J3, J9).
 
-TPU-native analog of the reference Eigen PBA stack
+JAX analog of the reference Eigen PBA stack
 (reference: src/energy/problems/ — evaluate_jacobians.hpp:23 residual hot
 loop, hessian_block_evaluation.hpp:96/:171/:240 Hessian blocks + landmark
 Schur fold + idepth back-substitution,
@@ -26,11 +26,11 @@ Semantics kept from the reference:
   DSO eq 8.15/8.19 with b rebased at the current state, frames Schur-
   eliminated via reduce_system.
 
-TPU-first design: the window is a fixed-shape bank — K frame slots × N
+Design: the window is a fixed-shape bank — K frame slots × N
 landmark slots × 8-pixel pattern.  Residuals live in a dense
 [K_anchor, K_target, N, P] tensor with masks for existence/status/liveness;
-Hessian assembly and the landmark Schur fold are einsum contractions that
-reshape onto the MXU; the LM loop is host-driven over jitted kernels (7
+Hessian assembly and the landmark Schur fold are einsum contractions at
+full f32 precision; the LM loop is host-driven over jitted kernels (7
 iterations/keyframe, each a single device program).
 """
 
@@ -67,6 +67,15 @@ RES_OOB = 1
 RES_OUTLIER = 2
 
 BLOCK = 8  # per-frame state size: 6 pose + 2 affine
+
+# every contraction here runs at full f32 (or f64) precision: the GPU's
+# default TF32 inputs keep ~10 mantissa bits, which would cost the Hessian,
+# the Schur fold and the marginalization ledger ~3 decimal digits
+HIGHEST = jax.lax.Precision.HIGHEST
+
+
+def _mm(a, b):
+    return jnp.matmul(a, b, precision=HIGHEST)
 
 
 class PBAOptions(NamedTuple):
@@ -126,7 +135,8 @@ class Window:
     # marginalization ledger, double-float pairs (core/df64.py): the
     # reference keeps this system in double
     # (eigen_photometric_bundle_adjustment_problem.hpp `system_marginalized_`);
-    # TPUs have no f64, so hi+lo compensated pairs carry the extra precision.
+    # the device path runs in f32, so hi+lo compensated pairs carry the
+    # extra precision.
     h_marg: jnp.ndarray       # [K*8, K*8] (hi)
     b_marg: jnp.ndarray       # [K*8] (hi)
     energy_marg: jnp.ndarray  # scalar (hi)
@@ -173,7 +183,7 @@ class Window:
 
     def frame_count(self):
         # memoized: called repeatedly from host orchestration, and each
-        # device→host readback costs a round-trip on remote-attached TPUs
+        # device→host readback waits for the device
         cached = getattr(self, "_frame_count_cache", None)
         if cached is None:
             cached = int(np.asarray(jnp.sum(self.frame_valid)))
@@ -473,11 +483,12 @@ def _linearize_from_ev(window: Window, fej: FEJCache, ev: Evaluation, eps,
     wj_tgt = w[..., None, None] * j_tgt
 
     # H_pp blocks (hessian_block_evaluation.hpp:96)
-    h_rr = jnp.einsum("ijnpa,ijnpb->iab", wj_ref, j_ref)
-    h_tt = jnp.einsum("ijnpa,ijnpb->jab", wj_tgt, j_tgt)
-    h_rt = jnp.einsum("ijnpa,ijnpb->ijab", wj_ref, j_tgt)
-    b_r = jnp.einsum("ijnpa,ijnp->ia", wj_ref, r)
-    b_t = jnp.einsum("ijnpa,ijnp->ja", wj_tgt, r)
+    h_rr = jnp.einsum("ijnpa,ijnpb->iab", wj_ref, j_ref, precision=HIGHEST)
+    h_tt = jnp.einsum("ijnpa,ijnpb->jab", wj_tgt, j_tgt, precision=HIGHEST)
+    h_rt = jnp.einsum("ijnpa,ijnpb->ijab", wj_ref, j_tgt,
+                      precision=HIGHEST)
+    b_r = jnp.einsum("ijnpa,ijnp->ia", wj_ref, r, precision=HIGHEST)
+    b_t = jnp.einsum("ijnpa,ijnp->ja", wj_tgt, r, precision=HIGHEST)
 
     h = jnp.zeros((k, BLOCK, k, BLOCK), r.dtype)
     eye = jnp.eye(k, dtype=r.dtype)
@@ -498,13 +509,14 @@ def _linearize_from_ev(window: Window, fej: FEJCache, ev: Evaluation, eps,
         h_pose, b_pose = h, b
 
     # landmark Schur quantities (hessian_block_evaluation.hpp:171)
-    hpd_ref = jnp.einsum("ijnpa,ijnp->ina", wj_ref, j_d)
-    hpd_tgt = jnp.einsum("ijnpa,ijnp->ijna", wj_tgt, j_d)
+    hpd_ref = jnp.einsum("ijnpa,ijnp->ina", wj_ref, j_d, precision=HIGHEST)
+    hpd_tgt = jnp.einsum("ijnpa,ijnp->ijna", wj_tgt, j_d,
+                         precision=HIGHEST)
     hpd = jnp.einsum("ijna->inja", hpd_tgt) + jnp.einsum(
-        "ina,ij->inja", hpd_ref, jnp.eye(k, dtype=r.dtype)
+        "ina,ij->inja", hpd_ref, jnp.eye(k, dtype=r.dtype), precision=HIGHEST
     )                                                              # [K,N,K,8]
-    h_dd = jnp.einsum("ijnp,ijnp,ijn->in", j_d, j_d, w)
-    b_d = jnp.einsum("ijnp,ijnp,ijn->in", j_d, r, w)
+    h_dd = jnp.einsum("ijnp,ijnp,ijn->in", j_d, j_d, w, precision=HIGHEST)
+    b_d = jnp.einsum("ijnp,ijnp,ijn->in", j_d, r, w, precision=HIGHEST)
 
     if marg_pass:
         # scale-nullspace regularizer for landmarks anchored in a fixed frame
@@ -515,9 +527,10 @@ def _linearize_from_ev(window: Window, fej: FEJCache, ev: Evaluation, eps,
     well = h_dd > opts.idepth_nullspace_threshold
     inv_hdd = jnp.where(well, 1.0 / jnp.maximum(h_dd, 1e-300), 0.0)
 
-    h_schur = jnp.einsum("inja,in,inkb->jakb", hpd, inv_hdd, hpd).reshape(
-        k * BLOCK, k * BLOCK)
-    b_schur = jnp.einsum("inja,in,in->ja", hpd, inv_hdd, b_d).reshape(k * BLOCK)
+    h_schur = jnp.einsum("inja,in,inkb->jakb", hpd, inv_hdd, hpd,
+                         precision=HIGHEST).reshape(k * BLOCK, k * BLOCK)
+    b_schur = jnp.einsum("inja,in,in->ja", hpd, inv_hdd, b_d,
+                         precision=HIGHEST).reshape(k * BLOCK)
     return LinearSystem(h_pose, b_pose, h_schur, b_schur, hpd, inv_hdd, b_d)
 
 
@@ -592,7 +605,8 @@ def _solve_step(window: Window, sys: LinearSystem, eps, idepth, regularizer,
     # idepth back-substitution (hessian_block_evaluation.hpp:240)
     step_pose = step.reshape(k, BLOCK)
     d_step = -(
-        sys.b_d + jnp.einsum("inja,ja->in", sys.hpd, step_pose)
+        sys.b_d + jnp.einsum("inja,ja->in", sys.hpd, step_pose,
+                             precision=HIGHEST)
     ) * sys.inv_hdd / (1.0 + lam)
     d_step = jnp.where(jnp.isfinite(d_step), d_step, 0.0)
     idepth_new = idepth + d_step
@@ -810,7 +824,7 @@ def pose_covariances(window: Window, model, opts: PBAOptions = PBAOptions()):
     # drop the smallest singular value (monocular scale nullspace)
     keep = jnp.arange(s_vals.shape[0]) < s_vals.shape[0] - 1
     inv_s = jnp.where(keep, 1.0 / jnp.maximum(s_vals, 1e-300), 0.0)
-    cov = ((vt.T * inv_s[None, :]) @ u.T).astype(dtype)
+    cov = _mm(vt.T * inv_s[None, :], u.T).astype(dtype)
 
     c = cov.reshape(k, BLOCK, k, BLOCK).transpose(0, 2, 1, 3)[:, :, :6, :6]
     sigma_d = c[jnp.arange(k), jnp.arange(k)]                    # [K, 6, 6]
@@ -818,9 +832,9 @@ def pose_covariances(window: Window, model, opts: PBAOptions = PBAOptions()):
     adj = rel.adjoint()                                          # [K, K, 6, 6]
     adj_t = jnp.swapaxes(adj, -1, -2)
     sig_rel = (
-        adj @ sigma_d[:, None] @ adj_t
-        - jnp.swapaxes(c, -1, -2) @ adj_t
-        - adj @ c
+        _mm(_mm(adj, sigma_d[:, None]), adj_t)
+        - _mm(jnp.swapaxes(c, -1, -2), adj_t)
+        - _mm(adj, c)
         + sigma_d[None, :]
     )
     return cov, sig_rel
@@ -971,7 +985,7 @@ def _marginalize_device(window: Window, model, perm, opts: PBAOptions,
     hs_hi, hs_lo = df64.df_matvec(h_pts, jnp.zeros_like(h_pts), s)
     e_m, e_l = df64.df_add_flat(e_m, e_l,
                                 e_land.astype(ledger_t)
-                                + s @ (h_pts @ s) - s @ b_pts)
+                                + _mm(s, _mm(h_pts, s)) - _mm(s, b_pts))
     h_m, h_l = df64.df_add_flat(h_m, h_l, h_pts)
     b_m, b_l = df64.df_add(b_m, b_l, *df64.df_add(b_pts, zs,
                                                   -hs_hi, -hs_lo))
@@ -1007,7 +1021,7 @@ def _marginalize_device(window: Window, model, perm, opts: PBAOptions,
         # Newton refinement: X₁ = X₀ + X₀(I − A X₀), residual in pairs
         ax_hi, ax_lo = df64.df_matmul(h_ee, h_ee_lo, x0, jnp.zeros_like(x0))
         resid = (eye - ax_hi) - ax_lo
-        h_ee_inv = x0 + x0 @ resid
+        h_ee_inv = x0 + _mm(x0, resid)
 
         km = keep[:, None] & marg[None, :]
         h_ke = jnp.where(km, h_m, 0.0)
@@ -1022,7 +1036,7 @@ def _marginalize_device(window: Window, model, perm, opts: PBAOptions,
         b_e = jnp.where(marg, b_m, 0.0)
         b_e_lo = jnp.where(marg, b_l, 0.0)
         cb_hi, cb_lo = df64.df_matvec(corr_hi, corr_lo, b_e)
-        cb_lo = cb_lo + corr_hi @ b_e_lo
+        cb_lo = cb_lo + _mm(corr_hi, b_e_lo)
         b_k, b_k_lo = df64.df_add(jnp.where(keep, b_m, 0.0),
                                   jnp.where(keep, b_l, 0.0),
                                   -cb_hi, -cb_lo)
@@ -1054,7 +1068,7 @@ def marginalize(window: Window, model, opts: PBAOptions = PBAOptions(),
     compact the frame slots (deque erase → slot permutation).
 
     ``frame_flags``/``lm_any``: host copies of the flags, when the caller
-    already has them (avoids a device→host readback on remote TPUs).
+    already has them (avoids a device→host readback).
     """
     k = window.num_slots
     if lm_any is None:

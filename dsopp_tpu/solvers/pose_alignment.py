@@ -1,13 +1,13 @@
 """Frontend two-frame direct pose alignment (the J4 job).
 
-TPU-native analog of the reference ``EigenPoseAlignment``
+JAX analog of the reference ``EigenPoseAlignment``
 (reference: src/energy/problems/src/eigen_pose_alignment.cpp:28-275 —
 coarse-to-fine GN/LM over the semi-dense reference depth map with a
 1-pixel pattern, 6-DoF relative pose + 2 affine-brightness parameters,
 whole-point Huber, affine-brightness prior, LM driver
 levenberg_marquardt_algorithm.hpp:78).
 
-TPU-first redesign:
+Batched redesign:
 
 * the per-level solve is ONE jitted ``lax.while_loop`` — residuals over all
   N points are evaluated as a batch, the 8×8 normal system is two einsum
@@ -37,6 +37,10 @@ from dsopp_tpu.core.lie import SE3
 from dsopp_tpu.core.reproject import reproject_jacobian
 from dsopp_tpu.ops import pack_corners, sample_packed
 from dsopp_tpu.solvers.measure import huber_energy_weight
+
+# the normal equations sum ~10^3-10^4 products: TF32 inputs (the GPU's
+# default for f32 dots) would cost ~3 decimal digits of H and b
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 class AlignmentOptions(NamedTuple):
@@ -150,8 +154,8 @@ def _residual_system(pts: LevelPoints, pixel_map, model, t_t_r: SE3, affine,
         j = jnp.concatenate([dr_dpose, dr_da[..., None], dr_db[..., None]],
                             axis=-1)
         jw = j * weights[..., None]
-        h = jnp.einsum("ni,nj->ij", jw, j)
-        b = jnp.einsum("ni,n->i", jw, r)
+        h = jnp.einsum("ni,nj->ij", jw, j, precision=HIGHEST)
+        b = jnp.einsum("ni,n->i", jw, r, precision=HIGHEST)
     else:
         dr_dpose = (gx[..., None] * duv[..., None, 0, :]
                     + gy[..., None] * duv[..., None, 1, :])   # [N, C, 6]
@@ -160,8 +164,8 @@ def _residual_system(pts: LevelPoints, pixel_map, model, t_t_r: SE3, affine,
         j = jnp.concatenate([dr_dpose, dr_da[..., None], dr_db[..., None]],
                             axis=-1)                          # [N, C, 8]
         jw = j * weights[..., None, None]
-        h = jnp.einsum("nci,ncj->ij", jw, j)
-        b = jnp.einsum("nci,nc->i", jw, r)
+        h = jnp.einsum("nci,ncj->ij", jw, j, precision=HIGHEST)
+        b = jnp.einsum("nci,nc->i", jw, r, precision=HIGHEST)
     # affine prior system
     h = h.at[6, 6].add(reg[0]).at[7, 7].add(reg[1])
     b = b.at[6].add(reg[0] * affine[0]).at[7].add(reg[1] * affine[1])

@@ -1,6 +1,6 @@
 """Live odometry-track state.
 
-TPU-native analog of the reference track layer
+JAX analog of the reference track layer
 (reference: src/track/ — ActiveOdometryTrack with an active window +
 marginalized frames, ActiveKeyframe with attached non-key frames,
 unloadMarginalizedResources).  Here the ACTIVE window lives in the PBA

@@ -11,7 +11,7 @@ Mirrors src/tracker/landmarks_activator/src/landmarks_activator.cpp:
   distance (:86-120);
 * activated points become active landmarks anchored in their host keyframe.
 
-TPU-first deviation: the reference's sequential greedy scan (each accepted
+Fixed-shape deviation: the reference's sequential greedy scan (each accepted
 candidate blocks later ones) is replaced by a parallel test against the
 ACTIVE point set only — candidate-vs-candidate spacing is already enforced
 by the block-structured extractor, and the density controller absorbs any
@@ -162,7 +162,7 @@ def _refine_idepth_kernel(window: Window, model, imm: ImmaturePoints,
     ending with idepth < 0 or fewer than min(1, K−1) inlier residuals are
     deleted instead of activated.
 
-    TPU redesign (r4): only the ≤``cap`` ACTIVATING candidates refine — the
+    Fixed-shape redesign: only the ≤``cap`` ACTIVATING candidates refine — the
     bank-wide [K,K,N_imm,P] pass burned ~75 ms/keyframe refining points
     that were never activated.  Candidates compact into a fixed [cap] bank
     (index-ranked, like the activation scatter), refine against all window

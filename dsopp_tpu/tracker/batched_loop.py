@@ -1,6 +1,6 @@
 """Batched multi-sequence tracking: B independent odometry streams per chip.
 
-The TPU-native throughput lever (SURVEY §2.8, BASELINE config 4 "8 TUM-mono
+The throughput lever (SURVEY §2.8, BASELINE config 4 "8 TUM-mono
 sequences, one host, linear-ish scaling"): the per-frame device program of
 :mod:`dsopp_tpu.tracker.device_loop` is almost entirely latency-bound at the
 single-sequence operating point (small tensors, long op chains), so vmapping
@@ -18,7 +18,7 @@ chip, and composes with the ``seq`` mesh axis of
 :mod:`dsopp_tpu.parallel.sharded` across chips.
 
 Reference analog: none — the reference is a single-process, single-sequence
-CPU pipeline (SURVEY §2.8); this is the TPU-first replacement for "run N
+CPU pipeline (SURVEY §2.8); this is the batched replacement for "run N
 processes".
 """
 

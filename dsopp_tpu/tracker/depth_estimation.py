@@ -1,6 +1,6 @@
 """Immature-point depth estimation by epipolar search (the J5 job).
 
-TPU-native analog of the reference ``DepthEstimation``
+JAX analog of the reference ``DepthEstimation``
 (reference: src/tracker/depth_estimators/src/depth_estimation.cpp — per new
 frame, every immature landmark searches its epipolar segment between
 [idepth_min, idepth_max] with SSD over the 8-point pattern, refines subpixel
@@ -8,7 +8,7 @@ along the line tangent with a tiny GN (:81-160), derives an error radius
 from the gradient/epiline angle (:26-33), shrinks the idepth interval and
 updates the status machine (:223-356); TBB-parallel over landmarks).
 
-TPU-first redesign: everything is one fixed-shape batched computation over
+Fixed-shape redesign: everything is one fixed-shape batched computation over
 [N landmarks × S samples × P pattern]:
 
 * the epipolar segment is sampled at S uniform positions between the
@@ -126,7 +126,7 @@ def estimate_depths(
     dtype = points.uv.dtype
     h_px, w_px = target_map.shape[-2:]
     # ONE 10×10-window patch table serves the whole stage (ops/patch.py):
-    # gather cost on the v5e is per-ROW (PERF.md §1.2), and consecutive
+    # gathers are counted in rows, and consecutive
     # epiline samples sit ~1 px apart, so a GROUP of 4 samples × 8 pattern
     # points shares a single 128-lane row — 8 rows per landmark for the
     # whole SSD sweep instead of one row per (sample, point), and the

@@ -1,6 +1,6 @@
 """Semi-dense reference depth maps for the frontend (create_depth_maps).
 
-TPU-native analog of reference src/tracker/tracker/src/create_depth_maps.cpp:
+JAX analog of reference src/tracker/tracker/src/create_depth_maps.cpp:
 project every active landmark of every active keyframe into the NEWEST
 keyframe, scatter-accumulate (idepth·w, w) into a level-0 grid, pool to
 coarser levels, and dilate into empty neighbors.  The result seeds the next
@@ -67,8 +67,7 @@ def build_depth_maps(window: Window, model, height: int, width: int,
     idepth0 = idepth0.reshape(height, width)
     weight0 = weight0.reshape(height, width)
 
-    # 2x2 sum-pool per level (reduce_window: the stride-2 slicing form is
-    # lane-shuffle-bound on TPU, ~25x slower at VGA)
+    # 2x2 sum-pool per level (one reduce_window)
     def pool(x):
         h2 = (x.shape[0] // 2) * 2
         w2 = (x.shape[1] // 2) * 2
@@ -114,8 +113,8 @@ def build_frontend_state(window: Window, model, maps, height: int, width: int,
     """Depth-map pyramids + per-level frontend points + flow set, fused.
 
     Fuses ``build_depth_maps`` with ``depth_map_level_points`` over every
-    level — the keyframe path previously paid one eager dispatch per level
-    (5 × ~44 ms on a remote-attached chip).  ``maps``: tuple of the new
+    level — one program instead of one eager dispatch per level.
+    ``maps``: tuple of the new
     keyframe's per-level pixel maps.  The fourth output is the compact
     [FLOW_CAP] point set for the per-frame flow statistic: extracting the
     weight>0 pixels once per KEYFRAME turns the per-frame flow pass from

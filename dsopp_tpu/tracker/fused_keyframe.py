@@ -1,7 +1,6 @@
 """Fused keyframe push: the whole keyframe device path as ONE program.
 
-On remote-attached TPUs every dispatch is a host round-trip; the keyframe
-path previously ran ~6 device programs plus a dozen small dispatches
+Every dispatch costs host time; the keyframe path previously ran ~6 device programs plus a dozen small dispatches
 (push → immature-bank insert → activation kernel → idepth refinement →
 activation scatter → windowed LM solve → readback bundle).  This module
 composes them into a single jitted program returning the updated state and

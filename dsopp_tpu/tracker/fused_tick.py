@@ -1,6 +1,6 @@
 """Fused regular-frame tick: one device program per tracked frame.
 
-On remote-attached TPUs every dispatch and readback is a host round-trip,
+Every dispatch and readback costs host time and a device synchronization,
 so the per-frame hot path (pyramid → hypothesis batch → coarse-to-fine
 alignment → epipolar depth update → flow statistics) is fused into a single
 jitted program returning only scalar summaries + updated state.  The host
@@ -80,8 +80,7 @@ def fused_regular_tick(
 
         Coarse levels refine every hypothesis in the chunk (vmap); level 0
         — the expensive one — runs only the chunk's coarse winner (the
-        L1 per-point-energy ranking decides; measured 3.4 ms → ~0.8 ms at
-        the standart operating point).  Scored by PER-POINT energy with a
+        L1 per-point-energy ranking decides).  Scored by PER-POINT energy with a
         valid-count floor: a spurious minimum that drops most points can
         have a lower SUMMED energy than the true pose (the reference's
         per-try acceptance gates on rmse — monocular_tracker.cpp:185).

@@ -111,8 +111,8 @@ class SparseMarginalizationStrategy:
         count as "active" for the frame-dropping heuristic).
         ``host``: optional dict of pre-fetched numpy copies of the window
         fields (keys: frame_valid, lm_valid, lm_outlier, lm_opt_count,
-        lm_inliers, poses_t, frame_id, res_status) — on remote-attached
-        TPUs the caller batches these into one transfer.
+        lm_inliers, poses_t, frame_id, res_status) — the caller batches
+        these into one device→host transfer.
         """
         k = window.num_slots
         f = window.frame_count()

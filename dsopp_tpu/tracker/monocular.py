@@ -1,6 +1,6 @@
 """Monocular direct tracker: the per-frame ``tick`` orchestration.
 
-TPU-native analog of the reference ``MonocularTracker``
+JAX analog of the reference ``MonocularTracker``
 (reference: src/tracker/tracker/src/monocular_tracker.cpp:425-530 tick,
 :105-174 flow statistic + initialization poses, :176-250 estimatePose with
 re-tracking).  Flow per frame:
@@ -64,8 +64,8 @@ from dsopp_tpu.tracker.marginalization import SparseMarginalizationStrategy
 ENERGY_RATIO_THRESHOLD = 2.5  # re-track gate (monocular_tracker.cpp:185)
 
 
-# Coarse jit wrappers: on remote-attached TPUs every eager op is a host
-# round-trip, so each tick phase must be a single device program.
+# Coarse jit wrappers: every eager op is its own dispatch, so each tick
+# phase is a single device program.
 @partial(jax.jit, static_argnames=("num_levels",))
 def _jit_pyramid_maps(image, num_levels):
     return build_pyramid_maps(image, num_levels)
@@ -235,7 +235,7 @@ class MonocularTracker:
 
     def _kf_id(self) -> int:
         # host-cached: ids are known at push time; reading window.frame_id
-        # back costs a device round-trip per frame on remote-attached TPUs
+        # back would cost a device→host transfer per frame
         cached = getattr(self, "_kf_id_cache", None)
         if cached is None:
             pos = self.window.frame_count() - 1

@@ -85,3 +85,62 @@ def test_override_creates_missing_keys(dataset):
     config = load_config(str(dataset / "mono.yaml"))
     config = apply_overrides(config, ["--config.new_section.value=7"])
     assert config["new_section"]["value"] == 7
+
+
+@pytest.fixture
+def no_yaml(monkeypatch):
+    """Make ``import yaml`` fail, as on a machine without PyYAML."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "yaml", None)
+
+
+def test_load_json_config_without_yaml(tmp_path, no_yaml):
+    import json
+
+    tree = {"tracker": {"number_of_desired_points": 2000,
+                        "keyframe_strategy": {"factor": 1.25}}}
+    (tmp_path / "mono.json").write_text(json.dumps(tree))
+    assert load_config(str(tmp_path / "mono.json")) == tree
+
+
+def test_yaml_config_without_pyyaml_names_json(dataset, no_yaml):
+    with pytest.raises(ImportError, match="json"):
+        load_config(str(dataset / "mono.yaml"))
+
+
+@pytest.mark.parametrize("raw, value", [
+    ("555", 555), ("-3", -3), ("2.5", 2.5), ("1e-5", 1e-5), (".5", 0.5),
+    ("true", True), ("False", False), ("yes", True), ("off", False),
+    ("null", None), ("~", None), ("[1, 2]", [1, 2]), ('"a b"', "a b"),
+    ("eigen", "eigen"), ("1 2", "1 2"),
+])
+def test_overrides_parse_scalars_without_yaml(raw, value, no_yaml):
+    config = apply_overrides({"a": {"b": 0}}, [f"--config.a.b={raw}"])
+    assert config["a"]["b"] == value
+    assert type(config["a"]["b"]) is type(value)
+
+
+def test_opencv_uses_names_image_paths():
+    from dsopp_tpu.config.loader import opencv_uses
+
+    base = {"sensors": [{"id": "cam", "type": "camera",
+                         "provider": {"type": "npy_folder"}}],
+            "initializer": {"type": "precalculated"}}
+    assert opencv_uses(base) == []
+    image = {**base, "sensors": [{"id": "cam", "type": "camera",
+                                  "provider": {"type": "image_folder"},
+                                  "camera_mask": "mask.png"}]}
+    assert opencv_uses(image) == ["cam: provider type 'image_folder'",
+                                  "cam: camera_mask"]
+    assert opencv_uses({**base, "initializer": {}}) == [
+        "feature-based bootstrap initializer"]
+
+
+def test_opencv_config_fails_early_without_opencv(dataset, monkeypatch):
+    import sys
+
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    config = load_config(str(dataset / "mono.yaml"))
+    with pytest.raises(ImportError, match="image_folder"):
+        build_application(config, str(dataset))

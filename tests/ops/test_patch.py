@@ -32,6 +32,36 @@ def test_table_layout(image):
     assert row0[0] == 0.0 and row0[4 * PATCH_WIN + 4] == image[0, 0]
 
 
+def _conv_patch_table(image):
+    """The earlier build: two one-hot convolutions at full precision."""
+    h, w = image.shape
+    lo, hi, n = 4, PATCH_WIN - 5, PATCH_WIN * PATCH_WIN
+    kv = np.zeros((PATCH_WIN, 1, 1, PATCH_WIN))
+    kv[np.arange(PATCH_WIN), 0, 0, np.arange(PATCH_WIN)] = 1.0
+    ov = jax.lax.conv_general_dilated(
+        image[None, :, :, None], jnp.asarray(kv, image.dtype), (1, 1),
+        [(lo, hi), (0, 0)], dimension_numbers=("NHWC", "HWIO", "NHWC"),
+        precision=jax.lax.Precision.HIGHEST)
+    kh = np.zeros((1, PATCH_WIN, PATCH_WIN, n))
+    for ky in range(PATCH_WIN):
+        for kx in range(PATCH_WIN):
+            kh[0, kx, ky, ky * PATCH_WIN + kx] = 1.0
+    out = jax.lax.conv_general_dilated(
+        ov, jnp.asarray(kh, image.dtype), (1, 1), [(0, 0), (lo, hi)],
+        dimension_numbers=("NHWC", "HWIO", "NHWC"),
+        precision=jax.lax.Precision.HIGHEST)
+    return jnp.pad(out[0].reshape(h * w, n), ((0, 0), (0, PATCH_LANES - n)))
+
+
+@pytest.mark.parametrize("shape", [(60, 80), (7, 5), (33, 48)])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.float64])
+def test_table_equals_conv_build(shape, dtype):
+    img = jnp.asarray(np.random.default_rng(1).uniform(0, 255, shape), dtype)
+    got = pack_patch_table(img)
+    assert got.dtype == dtype
+    assert np.array_equal(np.asarray(got), np.asarray(_conv_patch_table(img)))
+
+
 def test_matches_pixel_map_sampling(image):
     h, w = image.shape
     rng = np.random.default_rng(5)

@@ -11,7 +11,7 @@ process boundary.  Each worker checks the result against a local
 single-device reference.
 
 Reference analog: the reference has no multi-host story at all (SURVEY
-§2.8 — oneTBB within one process); this covers the TPU-native replacement.
+§2.8 — oneTBB within one process); this covers the JAX replacement.
 """
 
 import os

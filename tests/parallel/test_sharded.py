@@ -14,9 +14,6 @@ from dsopp_tpu.parallel.sharded import (
 
 
 def _problems(n=2, landmarks=64):
-    import sys
-
-    sys.path.insert(0, "/root/repo")
     from __graft_entry__ import _tiny_problem
 
     ws, cam = [], None
@@ -54,9 +51,6 @@ def test_lm_only_mesh():
 
 
 def test_entry_point():
-    import sys
-
-    sys.path.insert(0, "/root/repo")
     import __graft_entry__ as ge
 
     fn, args = ge.entry()
@@ -68,9 +62,17 @@ def test_entry_point():
 def test_dryrun_multichip():
     """The driver's multi-chip dry run: full sharded solver + marg fold +
     a 20-frame tracked segment under the 8-device mesh (~3 min compile)."""
-    import sys
-
-    sys.path.insert(0, "/root/repo")
     import __graft_entry__ as ge
 
     ge.dryrun_multichip(8)
+
+
+def test_tracked_segment_matches_unsharded():
+    """A short sequence-sharded tracked segment against the same batch run
+    unsharded on one device (the comparison ``chip_smoke.py --multi`` runs
+    on four cards)."""
+    import __graft_entry__ as ge
+
+    first, final = ge._dryrun_tracked_segment(2, num_frames=4)
+    assert first < ge.FIRST_TICK_TOL
+    assert final < ge.FINAL_POSE_TOL

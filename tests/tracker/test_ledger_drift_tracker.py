@@ -1,7 +1,7 @@
 """Tracker-level ledger drift: f32+df64 device path vs the CPU-x64 oracle.
 
 The marginalization ledger accumulates dozens of folds over a long run;
-``core/df64.py`` keeps it in compensated double-float pairs so the f32 TPU
+``core/df64.py`` keeps it in compensated double-float pairs so the f32 device
 path does not lose small updates against the grown prior (DSO eq 8.15/8.19
 ledger, reference eigen_photometric_bundle_adjustment.cpp).
 
